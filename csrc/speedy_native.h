@@ -1,13 +1,13 @@
 //  speedy_tpu native runtime — C ABI compatible with the reference's
 //  sonic2 shim (sonic2.h:54-125) and speedy analysis surface
-//  (speedy.h:61-133). Fresh implementation for the TPU-native framework:
+//  (speedy.h:61-133). Fresh implementation for the JAX framework:
 //  the algorithms follow the same published Mach1 spec as the JAX ops in
 //  ../speedy_tpu/ops (which are the source of truth for parity tests).
 //
 //  This library is the host-side streaming runtime: C/C++ applications
 //  (or the Python ctypes binding in speedy_tpu/native.py) drive it for
 //  latency-shaped use; corpus-scale throughput belongs to the batched
-//  JAX/TPU path.
+//  JAX path on the GPU.
 
 #ifndef SPEEDY_TPU_NATIVE_H_
 #define SPEEDY_TPU_NATIVE_H_

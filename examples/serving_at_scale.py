@@ -7,8 +7,8 @@ soniclib.c:427-450), audio stays device-resident in per-slot sliding
 windows, and the wire speaks the reference's int16 PCM format both ways
 (sonicWriteShortToStream / sonicReadShortFromStream semantics on
 device). Pipelines wider than 32 streams automatically serve through
-dispatch GROUPS of <=32 slots (per-stream outputs stay bit-identical;
-see MULTISTREAM_BENCH.json for the measured saturation curve).
+dispatch GROUPS of <=32 slots (per-stream outputs stay equal to an
+ungrouped pipeline's).
 
 Also demonstrates mid-stream checkpoint/resume: one caller's lane is
 snapshotted, the slot is reused by someone else, and the caller later
@@ -43,9 +43,8 @@ def caller_audio(sr, seconds, seed):
 
 
 def main():
-    from speedy_tpu.profiling import enable_compile_cache, honor_jax_platform_env
+    from speedy_tpu.profiling import enable_compile_cache
 
-    honor_jax_platform_env()
     enable_compile_cache()
     from speedy_tpu.multistream import MultiStreamPipeline
 

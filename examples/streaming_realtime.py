@@ -37,9 +37,8 @@ def synth(sr, seconds=4.0):
 def main():
     # Persistent XLA cache: repeat runs (e.g. the smoke tests) skip
     # recompilation entirely.
-    from speedy_tpu.profiling import enable_compile_cache, honor_jax_platform_env
+    from speedy_tpu.profiling import enable_compile_cache
 
-    honor_jax_platform_env()
     enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--wav")

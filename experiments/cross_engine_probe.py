@@ -3,7 +3,7 @@ the cross-engine fidelity gate bounds (round-4 verdict item 3).
 
 The scan engine (ops/wsola.py) is the sonic-exact-algebra fidelity
 anchor (libsonic itself is external and unbuildable here); the grid
-engine (ops/wsola_fast.py + Pallas kernels) is the TPU production path.
+engine (ops/wsola_fast.py) is the production path.
 They share per-step speed-quanta algebra but differ in pitch search
 (AMDF argmin at the cursor vs SSD over a regular grid) and synthesis
 scheduling, so outputs are NOT bitwise-comparable — the right gate is a

@@ -1,4 +1,4 @@
-"""speedy_tpu: a TPU-native (JAX/XLA/Pallas) rebuild of google/speedy.
+"""speedy_tpu: a JAX/XLA rebuild of google/speedy.
 
 Nonlinear ("Mach1") speech speedup: a batched spectral front-end computes a
 per-frame tension, a control law maps tension to instantaneous speed, and a

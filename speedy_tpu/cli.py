@@ -146,9 +146,8 @@ def _compress_streaming(
 
 
 def main(argv=None) -> int:
-    from .profiling import enable_compile_cache, honor_jax_platform_env
+    from .profiling import enable_compile_cache
 
-    honor_jax_platform_env()
     enable_compile_cache()
     ap = argparse.ArgumentParser(
         prog="speedy_wave",

@@ -1,4 +1,4 @@
-"""Configuration and algorithm constants for the Speedy (Mach1) TPU rebuild.
+"""Configuration and algorithm constants for the Speedy (Mach1) rebuild.
 
 Every constant here is traceable to the reference C implementation
 (/root/reference). This module is the single source of truth for the

@@ -1,6 +1,6 @@
 """Minimal RIFF/WAVE reader and writer (16-bit PCM centric).
 
-TPU-native replacement for the reference's external `wave.h` dependency
+Replacement for the reference's external `wave.h` dependency
 (component C20 in SURVEY.md; used by speedy_wave.cc:162-233 and every test).
 Implemented with numpy so waveforms land directly in host arrays ready for
 device transfer; no external audio libraries.

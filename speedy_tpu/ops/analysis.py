@@ -70,7 +70,7 @@ def analyze(
     cfg: SpeedyConfig,
     num_frames: Optional[int] = None,
     integer_step: bool = False,
-    precision=None,  # None -> dft.analysis_precision() (env-tunable)
+    precision=None,  # None -> dft.ANALYSIS_PRECISION
     constrain_frames=None,
     constrain_spectrogram=None,
 ) -> AnalysisResult:

@@ -19,8 +19,8 @@ reference's ring state,
                                           t-1..t+fut relative to emission)
 
 so peak device state is ~4 KB regardless of utterance length; per-chunk
-compute is the same fused tensor math as the batched engine (DFT matmuls
-on the MXU, shifted-slice hysteresis).
+compute is the same fused tensor math as the batched engine (DFT matmuls,
+shifted-slice hysteresis).
 
 Frame pipelining: a frame's window spans W = 1.5*step samples, so the
 last frame of a chunk's sample range needs the NEXT chunk's first
@@ -169,7 +169,7 @@ def make_chunk_step(cfg: SpeedyConfig, chunk_frames: int, dtype: str = "float32"
         pre = frames - jnp.asarray(C.PREEMPHASIS_COEF, dtype) * prev
 
         fw = pre * win[None, :]
-        hi = dft.analysis_precision()
+        hi = dft.ANALYSIS_PRECISION
         re = jnp.dot(fw, cos_m, precision=hi)
         im = jnp.dot(fw, sin_m, precision=hi)
         half = jnp.sqrt(re * re + im * im)[:, :W]  # bins 0..fft/2-1

@@ -1,17 +1,15 @@
-"""Spectrogram via DFT-as-matmul: the TPU-first replacement for KissFFT/FFTW.
+"""Spectrogram via DFT-as-matmul: the replacement for KissFFT/FFTW.
 
 The reference zero-pads a Hamming-windowed frame of W samples to 2W and runs
 a complex FFT (speedy.c:438-474). 2W is never a power of two (660 at
-22.05 kHz), which is hostile to XLA's TPU FFT path — but because the input
-is real and only W+1 unique magnitude bins exist, the transform is exactly
-two [T, W] @ [W, W+1] matmuls, which map perfectly onto the MXU and fuse
+22.05 kHz); because the input is real and only W+1 unique magnitude bins
+exist, the transform is exactly two [T, W] @ [W, W+1] matmuls, which fuse
 with the window multiply. This is the hot op of the front-end.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -20,26 +18,13 @@ import numpy as np
 from ..config import SpeedyConfig
 
 
-def analysis_precision():
-    """Matmul precision for the ANALYSIS-side DFTs (trace-time; clear jit
-    caches after changing SPEEDY_ANALYSIS_PRECISION=default|high|highest).
-
-    Distinct from the pitch-search einsums, which measurably need HIGHEST
-    (HIGH re-ranks 1.7% of periods; see ops/wsola_fast.py). The analysis
-    golden gates vs Matlab sit at ~27-30 dB SNR, so HIGH (3-pass bf16,
-    ~2^-16 relative error, ~2x HIGHEST's matmul rate) is quality-neutral
-    here: all 16 golden gates pass on hardware at HIGH, and every
-    cross-engine tension comparison in the suite is same-precision on
-    both sides. Default flipped to HIGH after measuring +1.7% end-to-end
-    bench throughput (124.1k vs 122.0k audio-s/s/chip); HIGHEST remains
-    one env var away.
-    """
-    name = os.environ.get("SPEEDY_ANALYSIS_PRECISION", "high").lower()
-    return {
-        "default": jax.lax.Precision.DEFAULT,
-        "high": jax.lax.Precision.HIGH,
-        "highest": jax.lax.Precision.HIGHEST,
-    }[name]
+# Matmul precision of the analysis DFTs: full float32. On an H100, XLA
+# hands both DEFAULT and HIGH float32 dots to cuBLAS in TF32 (max
+# relative error 2.9e-4 on a [4096, 240] @ [240, 241] product, against
+# 6.2e-7 at HIGHEST), which moved tension by up to 0.059 (mean 2.6e-4)
+# at 16 kHz and 0.15 at 22.05 kHz against this chain at HIGHEST
+# (tools/card_probe.py; PERF.md).
+ANALYSIS_PRECISION = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=16)
@@ -74,7 +59,7 @@ def magnitude_spectrogram(
     Matches speedySpectrogram (speedy.c:438-454) bins 0..fft_size/2.
     """
     if precision is None:
-        precision = analysis_precision()
+        precision = ANALYSIS_PRECISION
     dtype = frames.dtype
     win = jnp.asarray(hamming_window(cfg.window_size, np.dtype(dtype).name))
     cos_m, sin_m = dft_matrices(cfg.window_size, np.dtype(dtype).name)

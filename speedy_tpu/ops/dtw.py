@@ -1,12 +1,12 @@
-"""Dynamic time warping (component C21), recast for TPU.
+"""Dynamic time warping (component C21), recast for batched devices.
 
 The reference (dynamic_time_warping.cc) fills an O(M·N) cost matrix with a
 pairwise distance, accumulates the classic {(1,0),(0,1),(1,1)}-move DP, and
 backtracks the optimal path with diagonal preferred on ties
 (dynamic_time_warping.cc:67-74).
 
-TPU recast:
-  * cost matrix = one matmul (|a-b|^2 = |a|^2 + |b|^2 - 2ab) on the MXU;
+Recast:
+  * cost matrix = one matmul (|a-b|^2 = |a|^2 + |b|^2 - 2ab);
   * the DP's within-row dependency acc[i,j] = c[i,j] + min(m[j], acc[i,j-1])
     (m[j] = min(acc[i-1,j], acc[i-1,j-1])) is a min-plus recurrence that
     factors through prefix sums:
@@ -28,7 +28,7 @@ import numpy as np
 
 @jax.jit
 def euclidean_cost_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Pairwise Euclidean distances: a[M,D], b[N,D] -> [M,N] (MXU matmul)."""
+    """Pairwise Euclidean distances: a[M,D], b[N,D] -> [M,N] (one matmul)."""
     a2 = jnp.sum(a * a, axis=-1)[:, None]
     b2 = jnp.sum(b * b, axis=-1)[None, :]
     ab = jnp.dot(a, b.T, precision=jax.lax.Precision.HIGHEST)

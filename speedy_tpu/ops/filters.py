@@ -2,7 +2,7 @@
 
 The reference iterates state = (1-α)·x + α·state sample-serially
 (speedy.c:50-88). A first-order linear recurrence composes associatively
-((a,b) pairs with (a2,b2)∘(a1,b1) = (a1·a2, a2·b1 + b2)), so on TPU we run
+((a,b) pairs with (a2,b2)∘(a1,b1) = (a1·a2, a2·b1 + b2)), so we run
 it as jax.lax.associative_scan — O(log T) depth instead of O(T).
 """
 

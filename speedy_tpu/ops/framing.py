@@ -1,4 +1,4 @@
-"""Framing and preemphasis, recast frame-parallel for TPU.
+"""Framing and preemphasis, recast frame-parallel.
 
 The reference processes frames serially, carrying preemphasis state across
 50%-overlapped frames (speedy.c:416-425,540-551: the state entering frame t

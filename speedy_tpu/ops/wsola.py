@@ -1,4 +1,4 @@
-"""WSOLA time-scale modification: the TPU-native rebuild of libsonic's
+"""WSOLA time-scale modification: the JAX rebuild of libsonic's
 pitch-synchronous resynthesis engine (component C19 in SURVEY.md).
 
 The reference consumes the external libsonic through the sonicInt* ABI
@@ -99,23 +99,22 @@ def _wsola_scan(
     num_steps: int,
     unroll: int = 1,
 ) -> WsolaResult:
-    """See module docstring. TPU performance notes (measured on v5e):
+    """See module docstring. Layout notes:
       * Writing into a carried output buffer at the data-dependent out_pos
-        lowers to a scatter per step (~600us each, batched offsets defeat
-        in-place aliasing). Instead, variable-size emissions accumulate in
-        a small carried residue vector and flush as fixed-size rows into
-        the scan's stacked outputs; the waveform is then assembled with one
-        contiguous row gather (~1ms total, vs ~0.8s for an element gather).
-      * All per-step memory access is contiguous dynamic slices; a
-        data-dependent element gather in the step body costs ~700us."""
+        lowers to a scatter per step (batched offsets defeat in-place
+        aliasing). Instead, variable-size emissions accumulate in a small
+        carried residue vector and flush as fixed-size rows into the
+        scan's stacked outputs; the waveform is then assembled with one
+        contiguous row gather.
+      * All per-step memory access is contiguous dynamic slices, never a
+        data-dependent element gather."""
     dtype = x.dtype
     maxp = max_period
     chunk = maxp             # passthrough quantum per step
     emit_width = 2 * maxp    # max emission of any step (insert: P + n <= 2P)
     # Front padding lets the insert branch read x[p + lane - period] as a
     # contiguous dynamic_slice (base never underflows); all per-step memory
-    # access is contiguous slices — a data-dependent gather here costs
-    # ~700us/step on TPU vs ~50us for the whole sliced step.
+    # access is contiguous slices.
     x_pad = jnp.concatenate(
         [jnp.zeros(maxp, dtype), x, jnp.zeros(2 * maxp + chunk, dtype)]
     )

@@ -1,4 +1,4 @@
-"""Grid-parallel WSOLA: the TPU-native fast path for batched resynthesis.
+"""Grid-parallel WSOLA: the fast path for batched resynthesis.
 
 The sonic-exact engine (ops.wsola) walks the waveform pitch-period by
 pitch-period — inherently sequential (~L/P scan steps). This module
@@ -6,17 +6,16 @@ restructures time-scale modification so almost everything is parallel:
 
   1. TIME MAP (parallel): per-frame speeds give the output clock
      o(x) = integral dx/s(x), piecewise linear over analysis frames;
-     prefix sums + searchsorted invert it, yielding each output chunk's
+     a banded compare-select inverts it, yielding each output chunk's
      nominal source position c_k on a FIXED synthesis grid k*Hs.
   2. PITCH (parallel, gather-free): local pitch measured on a REGULAR
-     input grid whose overlapping windows are built from strided reshapes
-     (zero gather), then looked up per chunk with a scalar gather. The
-     squared-difference (SSD) argmin over lags [fs/400, fs/65] expands as
-     E0 + E(d) - 2*CC(d): sliding energies from one cumsum, correlations
-     from zero-padded FFTs — refined to SUB-SAMPLE precision by parabolic
-     interpolation of the SSD minimum (splice phase error scales with
-     period error x periods wrapped; the Teager gates need ~0.05-sample
-     accuracy).
+     input grid whose non-overlapping windows are slice views of a
+     strided reshape (zero gather). The squared-difference (SSD) argmin
+     over lags [fs/400, fs/65] expands as E0 + E(d) - 2*CC(d), with the
+     correlations and windowed energies as DFT matmuls — refined to
+     SUB-SAMPLE precision by parabolic interpolation of the SSD minimum
+     (splice phase error scales with period error x periods wrapped;
+     the Teager gates need ~0.05-sample accuracy).
   3. PHASE SNAP (closed form): the alignment recurrence telescopes to
      a_k = c_k + wrap(c_0 + k*Hs - c_k, P_k) — fully parallel, bounded
      non-compounding drift <= P_k/2.
@@ -39,8 +38,7 @@ Teager rel-sigma is ~2x BETTER than the reference engine's.
 from __future__ import annotations
 
 import functools
-import os
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -50,17 +48,13 @@ from ..config import SpeedyConfig
 from .wsola import WsolaResult
 
 
-# f32 matmul accumulation for the pitch SSD. Measured: HIGH (bf16x3) is
-# ~7% SLOWER than HIGHEST end-to-end on v5e at these shapes and shifts
-# ~0.02% of periods by >0.1 samples — HIGHEST wins on both axes.
+# f32 matmul accumulation for the pitch SSD: bf16 passes re-rank
+# competing period minima (three bf16 passes moved 1.7% of periods by
+# more than one sample, one pass 3.5%).
 _PITCH_PRECISION = jax.lax.Precision.HIGHEST
 
-# NOTE on a measured dead end: a hierarchical pitch search (coarse SSD on
-# a 2x-decimated signal + exact 12-lag full-rate refinement around the
-# top-2 coarse minima, windows fetched via the block-span gather) was
-# 23% SLOWER end-to-end than the dense MXU SSD below AND picked a
-# 2-3x-worse splice on ~2% of real-speech cells (decimation re-ranks
-# competing harmonic minima). Dense matmul on the MXU wins.
+# Pitch-grid cell count quantum (see pitch_period_grid).
+_CELL_QUANTUM = 64
 
 
 @functools.lru_cache(maxsize=16)
@@ -73,10 +67,8 @@ def _cola_hann(width: int, dtype: str = "float32") -> np.ndarray:
 def _pitch_dft_size(req: int) -> int:
     """Smallest even DFT length M >= req whose real-bin count
     nb = M//2 + 1 is a 128-multiple. The DFT is a MATMUL (not an FFT),
-    so M needs no special factorization — and the matmuls' lane dimension
-    is nb, so aligning nb (not M) is what avoids Mosaic/XLA padding the
-    [.., 2nb] DFT products up to the next 128 tile (M=512 gives nb=257 ->
-    lanes padded ~25-49%; M=510 gives nb=256 exactly)."""
+    so M needs no special factorization; an aligned nb keeps the
+    [.., 2nb] DFT products free of padding columns."""
     nb = -(-(-(-req // 2) + 1) // 128) * 128
     return 2 * nb - 2
 
@@ -85,7 +77,7 @@ def _pitch_dft_size(req: int) -> int:
 def _pitch_corr_matrices(
     taps: int, seg_w: int, minp: int, maxp: int, M: int, dtype: str = "float32"
 ):
-    """Matrices that turn the pitch SSD into three MXU matmuls.
+    """Matrices that turn the pitch SSD into three matmuls.
 
     The linear cross-correlation cc[l] = sum_i a0[i]*seg[i+l] (l in
     [minp, maxp]) equals the M-point circular correlation when
@@ -95,9 +87,7 @@ def _pitch_corr_matrices(
     taps — the classic full-linear-convolution bound — is NOT required:
     only lags [minp, maxp] are read, never the aliased negative lags.)
     A real DFT of length M is a pair of [len, 2*(M/2+1)] matmuls — the same
-    DFT-as-matmul trick as the front-end spectrogram (ops/dft.py), chosen
-    because XLA's TPU FFT lowering runs ~7x slower than the MXU on these
-    shapes (measured 67 ms vs 10 ms per production batch).
+    DFT-as-matmul trick as the front-end spectrogram (ops/dft.py).
 
     Returns (Ea [taps, 2nb], Es [seg_w, 2nb], Inv [2nb, n_lags],
     Band [seg_w, n_lags+1]) with nb = M//2+1:
@@ -130,126 +120,100 @@ def _pitch_corr_matrices(
     return Ea.astype(f), Es.astype(f), Inv.astype(f), Band.astype(f)
 
 
-def _gather_rows(
-    x: jnp.ndarray,
-    starts: jnp.ndarray,
-    width: int,
-    n_valid: Optional[jnp.ndarray] = None,
+def _pitch_ssd(seg: jnp.ndarray, taps: int, minp: int, maxp: int) -> jnp.ndarray:
+    """seg[B, G, seg_w] -> SSD[B, G, n_lags]: SSD(d) for d in [minp, maxp]
+    with the template = the first `taps` samples of each window, as DFT
+    matmuls (see _pitch_corr_matrices)."""
+    w = seg.shape[-1]
+    M = _pitch_dft_size(max(w, taps + maxp))
+    nb = M // 2 + 1
+    nl = maxp - minp + 1
+    mats = _pitch_corr_matrices(taps, w, minp, maxp, M, np.dtype(seg.dtype).name)
+    Ea, Es, Inv, Band = (jnp.asarray(m) for m in mats)
+    prec = _PITCH_PRECISION
+    a0 = seg[..., :taps]
+    FA = jnp.einsum("bgt,tk->bgk", a0, Ea, precision=prec)
+    FS = jnp.einsum("bgt,tk->bgk", seg, Es, precision=prec)
+    AR, AI = FA[..., :nb], FA[..., nb:]
+    SR, SI = FS[..., :nb], FS[..., nb:]
+    cc = jnp.einsum(
+        "bgk,kl->bgl", AR * SR + AI * SI, Inv[:nb], precision=prec
+    ) + jnp.einsum(
+        "bgk,kl->bgl", AR * SI - AI * SR, Inv[nb:], precision=prec
+    )
+    E = jnp.einsum("bgt,tl->bgl", seg * seg, Band, precision=prec)
+    return E[..., nl:] + E[..., :nl] - 2.0 * cc
+
+
+def _parabolic_min(ssd: jnp.ndarray, minp: int) -> jnp.ndarray:
+    """Sub-sample argmin of ssd[B, G, n_lags] over lags minp + j."""
+    jmin = jnp.argmin(ssd, axis=-1)
+    jc = jnp.clip(jmin, 1, ssd.shape[-1] - 2)
+    take = lambda off: jnp.take_along_axis(ssd, (jc + off)[..., None], axis=2)[
+        ..., 0
+    ]
+    l, m, r = take(-1), take(0), take(1)
+    denom = l - 2.0 * m + r
+    frac = jnp.where(jnp.abs(denom) > 1e-12, 0.5 * (l - r) / denom, 0.0)
+    return (minp + jc).astype(ssd.dtype) + jnp.clip(frac, -0.5, 0.5)
+
+
+def pitch_period_grid(
+    xs: jnp.ndarray, G: int, minp: int, maxp: int
 ) -> jnp.ndarray:
-    """x[B, Lp], starts[B, K] -> rows[B, K, width]: Pallas DMA kernel on
-    TPU (~3x the throughput of XLA's gather lowering), vmapped dynamic
-    slices elsewhere. Rows beyond n_valid[b] may return garbage (their
-    DMAs are skipped — capacity is planned for worst-case speed 1.0, so
-    at a 3.5x speedup this skips ~70% of the issue cost)."""
-    from .pallas_kernels import gather_rows
+    """xs[B, L] -> sub-sample pitch period of every grid cell [B, n_grid].
 
-    return gather_rows(x, starts, width, n_valid)
+    Cell g's window is xs[g*G : g*G + 2*maxp] (zero past the end), its
+    template the window's first maxp samples, and its period the SSD
+    argmin over lags [minp, maxp] refined by a parabola."""
+    B, L = xs.shape
+    seg_w = 2 * maxp
+    assert G >= seg_w
+    n_grid = -(-(L + seg_w) // G)
+    # The cell count is quantized to a multiple of _CELL_QUANTUM: the
+    # SSD matmuls' row count (B * cells) then stays the same across
+    # nearby padded lengths, and with it the float summation order, so an
+    # utterance's periods (and output) do not depend on the length bucket
+    # it was padded to (test_corpus_bucket_ratio_invariance).
+    n_cells = -(-n_grid // _CELL_QUANTUM) * _CELL_QUANTUM
+    xs_pad = jnp.concatenate(
+        [xs, jnp.zeros((B, n_cells * G - L), xs.dtype)], axis=1
+    )
+    seg = xs_pad.reshape(B, n_cells, G)[:, :, :seg_w]
+    return _parabolic_min(_pitch_ssd(seg, maxp, minp, maxp), minp)[:, :n_grid]
 
 
-def _gather_rows_spans(
-    x: jnp.ndarray,
-    starts: jnp.ndarray,
-    width: int,
-    span_rows: int,
-    w_span: int,
-    n_valid_rows: Optional[jnp.ndarray] = None,
+def _gather_rows(x: jnp.ndarray, starts: jnp.ndarray, width: int) -> jnp.ndarray:
+    """x[B, Lp], starts[B, K] -> rows[B, K, width] (XLA gather of
+    contiguous rows). Starts must lie in [0, Lp - width]; dynamic_slice
+    clamps anything beyond."""
+    return jax.vmap(
+        lambda xb, sb: jax.vmap(
+            lambda s: jax.lax.dynamic_slice(xb, (s,), (width,))
+        )(sb)
+    )(x, starts)
+
+
+def _synth_slots(
+    src: jnp.ndarray, a_i: jnp.ndarray, a_f: jnp.ndarray, hop: int
 ) -> jnp.ndarray:
-    """Block-span row gather: the fast path for sorted-ish starts.
+    """Fractional-delay gather + COLA-Hann window + half-slot OLA.
 
-    The per-row DMA kernel is issue-rate bound (~0.85 us/row on v5e
-    regardless of design — see pallas_kernels.py), so instead fetch ONE
-    aligned span of w_span samples per block of span_rows consecutive
-    rows (span_rows x fewer DMAs) and extract the rows from the spans with
-    dense, fully vectorized XLA ops:
-
-      1. superblock select: one-hot [R, nsb] @ overlapped 1536-wide views
-         of the span (exact f32 matmul — one-hot times value is lossless),
-      2. two radix-8 shift levels (128- and 16-sample) as where-masked
-         static slices,
-      3. a 4-step barrel shift for the final 0..15 lanes.
-
-    Correctness requires max(starts) - min(starts) + width <= w_span
-    within every block; callers guarantee it by clamping speeds to the
-    static plan bound (the same planner contract as min_speed_bound).
-    n_valid_rows [B]: blocks entirely past it are skipped (no DMA);
-    their rows return unspecified values.
-    """
-    assert w_span % 1024 == 0
-    from .pallas_kernels import gather_rows, gather_rows_block_pallas
-
-    if jax.default_backend() == "tpu":
-        # One span DMA per block + fully lane-parallel in-VMEM extraction.
-        return gather_rows_block_pallas(
-            x, starts, width, span_rows, w_span, n_valid_rows
-        )
-    B, K = starts.shape
-    R = span_rows
-    NB = -(-K // R)
-    if NB * R != K:
-        starts = jnp.concatenate(
-            [starts, jnp.tile(starts[:, -1:], (1, NB * R - K))], axis=1
-        )
-    s2 = starts.reshape(B, NB, R)
-    base = jnp.min(s2, axis=2)  # [B, NB]
-    offs = (s2 - base[:, :, None]).astype(jnp.int32)
-    nvb = None
-    if n_valid_rows is not None:
-        nvb = jnp.minimum(-(-n_valid_rows // R), NB).astype(jnp.int32)
-    # Spans may run past the padded signal end (base is clipped to the
-    # valid region but base + w_span need not be): give the slice room so
-    # the CPU fallback's dynamic_slice never shifts its start.
-    x = jnp.concatenate([x, jnp.zeros((B, w_span), x.dtype)], axis=1)
-    spans = gather_rows(x, base, w_span, nvb)  # [B, NB, w_span]
-
-    dtype = x.dtype
-    nsb = w_span // 1024
-    # Level widths, innermost out: the barrel consumes shifts < 16 (plus
-    # its own <=15-lane wrap margin), level C consumes 7*16, level B
-    # 7*128, level A the 1024-aligned superblock index.
-    w3 = -(-(width + 15) // 16) * 16 + 16
-    w2 = 7 * 16 + w3
-    w1 = 7 * 128 + w2
-    v_extra = max(512, -(-(w1 - 1024) // 128) * 128)
-    assert v_extra <= 1024, f"row width {width} too large for 1024-superblocks"
-    sp_pad = jnp.concatenate([spans, jnp.zeros((B, NB, 1024), dtype)], axis=-1)
-    Vl = sp_pad.reshape(B, NB, nsb + 1, 1024)
-    V = jnp.concatenate([Vl[:, :, :nsb], Vl[:, :, 1:, :v_extra]], axis=-1)
-
-    qA = offs // 1024
-    rA = offs - qA * 1024
-    onehotA = (qA[..., None] == jnp.arange(nsb, dtype=jnp.int32)).astype(dtype)
-    slabA = jnp.einsum(
-        "bnrj,bnjc->bnrc", onehotA, V, precision=jax.lax.Precision.HIGHEST
-    )[..., :w1]  # [B, NB, R, w1]
-
-    qB = rA // 128
-    rB = rA - qB * 128
-    slabB = sum(
-        jnp.where(
-            (qB == j)[..., None],
-            jax.lax.slice_in_dim(slabA, j * 128, j * 128 + w2, axis=-1),
-            jnp.zeros((), dtype),
-        )
-        for j in range(8)
-    )  # [B, NB, R, w2]
-
-    qC = rB // 16
-    rC = rB - qC * 16
-    slabC = sum(
-        jnp.where(
-            (qC == j)[..., None],
-            jax.lax.slice_in_dim(slabB, j * 16, j * 16 + w3, axis=-1),
-            jnp.zeros((), dtype),
-        )
-        for j in range(8)
-    )  # [B, NB, R, w3]
-
-    slab = slabC
-    for bit in range(4):
-        sh = 1 << bit
-        rolled = jnp.roll(slab, -sh, axis=-1)
-        slab = jnp.where((rC & sh)[..., None] != 0, rolled, slab)
-    return slab[..., :width].reshape(B, NB * R, width)[:, :K]
+    src[N, Lp] (already padded so every row [a_i, a_i + 2*hop] is in
+    range), a_i/a_f [N, K] integer/fractional read positions ->
+    slots[N, K, hop]: slot k = second half of chunk k-1 + first half of
+    chunk k, slot 0 = the unwindowed first half of chunk 0."""
+    n = src.shape[0]
+    wn = 2 * hop
+    win = jnp.asarray(_cola_hann(wn, np.dtype(src.dtype).name))
+    wide = _gather_rows(src, a_i, wn + 1)  # [N, K, 2*hop + 1]
+    af = a_f[:, :, None]
+    raw = wide[:, :, :-1] * (1.0 - af) + wide[:, :, 1:] * af
+    rows = raw * win[None, None, :]
+    slots = rows[:, :, :hop] + jnp.concatenate(
+        [jnp.zeros((n, 1, hop), src.dtype), rows[:, :-1, hop:]], axis=1
+    )
+    return jnp.concatenate([raw[:, :1, :hop], slots[:, 1:]], axis=1)
 
 
 @functools.partial(
@@ -262,10 +226,8 @@ def _gather_rows_spans(
         "capacity",
         "num_chunks",
         "max_speed_plan",
-        "span_rows",
         "mask_output",
         "return_period",
-        "debug_stage",
     ),
 )
 def _wsola_grid_batch(
@@ -280,20 +242,12 @@ def _wsola_grid_batch(
     num_chunks: int,
     xs_channels: Optional[jnp.ndarray] = None,
     max_speed_plan: Optional[float] = None,
-    # 128-row span blocks: the knee moved after the lane-dense control
-    # packing removed the old per-block fixed cost (round-1 sweep at the
-    # 85k level chose 64; with dense controls: 64 -> 166.2k,
-    # 128 -> 172.4k, and with B=128 -> 176.3k audio-s/s/chip;
-    # experiments/synth_sweep.py has the standalone-block numbers).
-    span_rows: int = 128,
     in_offset: Optional[jnp.ndarray] = None,
     out_shift: Optional[jnp.ndarray] = None,
     phase_ref: Optional[jnp.ndarray] = None,
     mask_output: bool = True,
     return_period: bool = False,
     gain: Optional[jnp.ndarray] = None,
-    debug_stage: Optional[str] = None,
-    period_grid: Optional[jnp.ndarray] = None,
 ) -> WsolaResult:
     """xs[B, L], input_lengths[B], speeds[B, F] -> WsolaResult with
     output[B, capacity], valid_length[B].
@@ -305,9 +259,7 @@ def _wsola_grid_batch(
 
     max_speed_plan (static, optional): planner bound on instantaneous
     speed. When set, speeds are clamped to it (the ceiling analog of the
-    engine's min_speed_bound floor) and synthesis uses the block-span
-    gather (_gather_rows_spans) whose span width it sizes — the TPU fast
-    path. When None, the per-row gather is used and speeds are unbounded.
+    engine's min_speed_bound floor). When None, speeds are unbounded.
 
     Streaming-continuation hooks (streaming_device.py; all default to the
     single-shot behavior):
@@ -326,25 +278,17 @@ def _wsola_grid_batch(
                       period [B, K] (the streaming pipeline snaps its
                       phase-reference re-basing to an exact period
                       multiple of the segment-boundary chunk);
-      debug_stage:    profiling hook (experiments/inprog_pipeline.py):
-                      'timemap' | 'pitch' | 'phase' returns a scalar
-                      checksum of that stage's outputs instead of a
-                      WsolaResult, so cumulative-prefix timing bisects
-                      the PRODUCTION code (XLA DCEs everything after the
-                      checksum) without a drifting re-implementation.
       gain [B]:       per-utterance input scale, equivalent to passing
-                      xs * gain[:, None] up to fp rounding but with no
-                      standalone [B, L] materialization: the pitch path
-                      folds it into the pitch-grid build (mandatory
-                      copy), and the fused synthesis kernel applies it
-                      in VMEM post-selection — keeping the padded HBM
-                      source gain-free, so serving scans hoist the pad
-                      as loop-invariant staging (sonicSetVolume-style
-                      input gain at zero bandwidth cost)."""
+                      xs * gain[:, None] (sonicSetVolume-style input
+                      gain); XLA fuses the multiply into the pitch-grid
+                      and synthesis pad copies."""
     dtype = xs.dtype
     B, L = xs.shape
-    g_row = None if gain is None else gain.astype(dtype).reshape(B, 1)
-    xs_g = xs if g_row is None else xs * g_row
+    if gain is not None:
+        g = gain.astype(dtype)
+        xs = xs * g[:, None]
+        if xs_channels is not None:
+            xs_channels = xs_channels * g[:, None, None]
     if max_speed_plan is not None:
         speeds = jnp.minimum(speeds, jnp.asarray(max_speed_plan, dtype))
     K = num_chunks
@@ -353,172 +297,60 @@ def _wsola_grid_batch(
     maxp, minp = max_period, min_period
     n_frames = speeds.shape[1]
     taps = maxp
-    # Synthesis positions are clipped to [0, L-1] below, so no front
-    # padding is ever read: the fused TPU path hands RAW xs_g to
-    # gather_synth_block_pallas, whose single fused jnp.pad builds the
-    # kernel's flat HBM view directly (the old x_pad concat + the
-    # wrapper's flatten-append chain cost two extra full HBM copies of x
-    # per step). The XLA fallback builds its padded buffer inside synth()
-    # (only traced on the branch actually taken).
-    pad_front = maxp
     lens_f = input_lengths.astype(dtype)
 
     # ---- 1. time map ----
-    inv_s = jnp.asarray(frame_step, dtype) / speeds  # [B, F]
-    obnd = jnp.concatenate(
-        [jnp.zeros((B, 1), dtype), jnp.cumsum(inv_s, axis=1)], axis=1
-    )  # [B, F+1]
-    total_frames = jnp.clip(input_lengths // frame_step, 0, n_frames)
-    tail = (input_lengths - total_frames * frame_step).astype(dtype)
-    last_speed = jnp.take_along_axis(
-        speeds, jnp.clip(total_frames, 0, n_frames - 1)[:, None], axis=1
-    )[:, 0]
-    out_len = (
-        jnp.take_along_axis(obnd, total_frames[:, None], axis=1)[:, 0]
-        + tail / last_speed
-    )
-    valid = jnp.minimum(jnp.round(out_len).astype(jnp.int32), capacity)
-
-    p = jnp.arange(K, dtype=dtype) * Hs  # output grid positions [K]
-    p_b = p[None, :] + (
-        out_shift[:, None].astype(dtype) if out_shift is not None else 0.0
-    )  # [B, K]
-    # Invert the monotone time map: frame f owns output positions in
-    # [obnd[f], obnd[f+1]), the last frame also owns the tail. A fused
-    # compare-select-reduce over the frame axis replaces searchsorted +
-    # two take_along_axis (XLA's sort/gather lowerings cost ~15 ms/batch
-    # here; the banded reduce fuses to ~2 ms and never materializes the
-    # [B, K, F] mask).
-    lo = obnd[:, None, :-1]  # [B, 1, F]
-    hi_b = obnd[:, None, 1:]
-    pk = p_b[:, :, None]
-    sel = (lo <= pk) & ((pk < hi_b) | (jnp.arange(n_frames) == n_frames - 1))
-    sp_f = jnp.sum(jnp.where(sel, speeds[:, None, :], 0), axis=-1)
-    ob_f = jnp.sum(jnp.where(sel, lo, 0), axis=-1)
-    fidx = jnp.sum(jnp.where(sel, jnp.arange(n_frames, dtype=dtype), 0), axis=-1)
-    c = fidx * frame_step + (p_b - ob_f) * sp_f  # [B, K]
-    if in_offset is not None:
-        c = c + in_offset[:, None].astype(dtype)
-    c = jnp.clip(c, 0.0, jnp.maximum(lens_f - 1.0, 0.0)[:, None])
-    if debug_stage == "timemap":
-        return jnp.sum(c) + jnp.sum(valid).astype(dtype)
-
-    seg_w = taps + maxp
-    # Pitch grid stride: the smallest 128-multiple >= max(3*Hs, seg_w) —
-    # one estimate per ~30 ms (512 samples @16 kHz). Pitch varies slowly:
-    # measured at 30 ms vs the earlier 20 ms grid, Teager margins at
-    # rates 0.4-3.5, real-speech splice-disagreement, and every Teager/
-    # DTW/varying-speed gate are identical (experiments/pitch_grid_G.py,
-    # pitch_grid_splice.py). G >= seg_w makes the windows non-overlapping
-    # pure slice views of a strided reshape (no concat — the old 2-view
-    # concat materialized ~125 MB/step), and 128 | G keeps the reshape
-    # lane-aligned so XLA fuses the views into the DFT einsums.
-    G = -(-max(3 * Hs, seg_w) // 128) * 128  # G >= seg_w by construction
-    # Cell count rounded up to the pitch kernel's GC program size so its
-    # internal padding is a no-op (otherwise it would concat-copy the
-    # whole grid); the extra zero cells cost ~1 MB of the pad that builds
-    # xs_pitch anyway, and g_idx below is clipped to the REAL cell range.
-    # The rounding follows SPEEDY_PITCH_GC so GC sweeps are FAIRLY
-    # pre-rounded (the round-3 lesson: a grid rounded for GC=64 makes
-    # GC=128 pay a per-step pad copy). At 22.05 kHz the default GC=64
-    # rounds 288 real cells to 320 (+11% dead pitch work); GC=32 is
-    # exact there — see the 22 kHz knee sweep in the ledger.
-    n_grid = -(-(L + seg_w) // G)  # real cells (g_idx clip bound)
-    _gc = int(os.environ.get("SPEEDY_PITCH_GC", "64"))
-    n_cells = -(-n_grid // _gc) * _gc
-    # Pitch reads x from sample 0 (x_pad's front padding is synthesis
-    # back-reach only): pad xs directly so the reshape stays tile-aligned.
-    # Branch decided BEFORE the grid build: the kernel path pads RAW xs
-    # (gain applied in-VMEM by the kernel), so the padded pitch grid is
-    # loop-invariant staging in serving scans, exactly like the
-    # synthesis kernel's padded source; the einsum path keeps the
-    # prescaled build (gain fused into this mandatory copy).
-    force_pitch = os.environ.get("SPEEDY_FORCE_PITCH_KERNEL", "")
-    on_tpu_p = jax.default_backend() == "tpu"
-    kernel_pitch = on_tpu_p or force_pitch == "interpret"
-    if period_grid is None:
-        xs_pitch = jnp.concatenate(
-            [xs if kernel_pitch else xs_g,
-             jnp.zeros((B, n_cells * G - L), dtype)], axis=1
+    with jax.named_scope("time_map"):
+        inv_s = jnp.asarray(frame_step, dtype) / speeds  # [B, F]
+        obnd = jnp.concatenate(
+            [jnp.zeros((B, 1), dtype), jnp.cumsum(inv_s, axis=1)], axis=1
+        )  # [B, F+1]
+        total_frames = jnp.clip(input_lengths // frame_step, 0, n_frames)
+        tail = (input_lengths - total_frames * frame_step).astype(dtype)
+        last_speed = jnp.take_along_axis(
+            speeds, jnp.clip(total_frames, 0, n_frames - 1)[:, None], axis=1
+        )[:, 0]
+        out_len = (
+            jnp.take_along_axis(obnd, total_frames[:, None], axis=1)[:, 0]
+            + tail / last_speed
         )
-        y = xs_pitch.reshape(B, n_cells, G)
-        seg = y[:, :, :seg_w]  # [B, n_grid, seg_w] — slice view, no copy
-    def ssd_matmul(seg_c, a_taps, lag_lo, lag_hi, prec):
-        """SSD(d) for d in [lag_lo, lag_hi] over seg_c [B, Gc, w] with the
-        template = first a_taps samples, as DFT matmuls on the MXU (see
-        _pitch_corr_matrices) — XLA's TPU FFT lowering is ~7x slower."""
-        w = seg_c.shape[-1]
-        M = _pitch_dft_size(max(w, a_taps + lag_hi))
-        nb = M // 2 + 1
-        nl = lag_hi - lag_lo + 1
-        mats = _pitch_corr_matrices(
-            a_taps, w, lag_lo, lag_hi, M, np.dtype(dtype).name
-        )
-        Ea, Es, Inv, Band = (jnp.asarray(m) for m in mats)
-        a0 = seg_c[..., :a_taps]
-        FA = jnp.einsum("bgt,tk->bgk", a0, Ea, precision=prec)
-        FS = jnp.einsum("bgt,tk->bgk", seg_c, Es, precision=prec)
-        AR, AI = FA[..., :nb], FA[..., nb:]
-        SR, SI = FS[..., :nb], FS[..., nb:]
-        # conj(FA)*FS as Re/Im einsums (measured equal to the single
-        # concatenated-product einsum — XLA fuses either form; kept split
-        # as the simpler expression of the complex arithmetic).
-        cc = jnp.einsum(
-            "bgk,kl->bgl", AR * SR + AI * SI, Inv[:nb], precision=prec
-        ) + jnp.einsum(
-            "bgk,kl->bgl", AR * SI - AI * SR, Inv[nb:], precision=prec
-        )
-        E = jnp.einsum("bgt,tl->bgl", seg_c * seg_c, Band, precision=prec)
-        return E[..., nl:] + E[..., :nl] - 2.0 * cc
+        valid = jnp.minimum(jnp.round(out_len).astype(jnp.int32), capacity)
 
-    def parabolic_min(ssd, lag_lo, j_hi):
-        jmin = jnp.argmin(ssd, axis=-1)
-        jc = jnp.clip(jmin, 1, j_hi)
-        take = lambda off: jnp.take_along_axis(
-            ssd, (jc + off)[..., None], axis=2
-        )[..., 0]
-        l, m, r = take(-1), take(0), take(1)
-        denom = l - 2.0 * m + r
-        frac = jnp.where(jnp.abs(denom) > 1e-12, 0.5 * (l - r) / denom, 0.0)
-        return (lag_lo + jc).astype(dtype) + jnp.clip(frac, -0.5, 0.5)
-
-    # Production pitch on TPU: the Pallas kernel with VMEM-resident DFT
-    # matrices (pallas_kernels.pitch_ssd_pallas). An earlier round
-    # measured it EQUAL to the einsums — but that was with M=512 (nb=257,
-    # Mosaic pads the DFT-product lanes 257->384, +33% FLOPs); with the
-    # nb-lane-aligned M=510 the kernel reads x across HBM exactly once
-    # and wins 3.03 vs 3.98 ms/step at the B=96 bench point (GC=64 knee;
-    # experiments/pitch_kernel_vs_einsum.py). Period decisions agree with
-    # the einsum path on every strongly-voiced cell; near-silence cells
-    # flip argmin ties under fp noise, which phase snapping absorbs (any
-    # period multiple aligns phase). The einsum path remains the
-    # off-TPU/reference formulation; SPEEDY_FORCE_PITCH_KERNEL=interpret
-    # routes the kernel through interpret mode for hermetic coverage.
-    if period_grid is not None:
-        # Precomputed by the fused analysis+pitch front-end kernel
-        # (pallas_kernels.analysis_energy_lsd_pallas with pitch_geom):
-        # the caller guarantees it was built with THIS G (same
-        # pitch_grid_stride) over the same xs, so the cell indexing
-        # below is identical. Whole-utterance single-shot callers only
-        # (streaming continuations keep the in-engine pitch path).
-        pass
-    elif kernel_pitch:
-        from .pallas_kernels import pitch_ssd_pallas
-
-        period_grid = pitch_ssd_pallas(
-            y, taps, minp, maxp,
-            gc_cells=int(os.environ.get("SPEEDY_PITCH_GC", "64")),
-            interpret=not on_tpu_p,
-            gain=gain,
+        p = jnp.arange(K, dtype=dtype) * Hs  # output grid positions [K]
+        p_b = p[None, :] + (
+            out_shift[:, None].astype(dtype) if out_shift is not None else 0.0
+        )  # [B, K]
+        # Invert the monotone time map: frame f owns output positions in
+        # [obnd[f], obnd[f+1]), the last frame also owns the tail. A
+        # compare-select-reduce over the frame axis that XLA fuses into
+        # one reduction (the [B, K, F] mask is never materialized).
+        lo = obnd[:, None, :-1]  # [B, 1, F]
+        hi_b = obnd[:, None, 1:]
+        pk = p_b[:, :, None]
+        sel = (lo <= pk) & ((pk < hi_b) | (jnp.arange(n_frames) == n_frames - 1))
+        sp_f = jnp.sum(jnp.where(sel, speeds[:, None, :], 0), axis=-1)
+        ob_f = jnp.sum(jnp.where(sel, lo, 0), axis=-1)
+        fidx = jnp.sum(
+            jnp.where(sel, jnp.arange(n_frames, dtype=dtype), 0), axis=-1
         )
-    else:
-        ssd = ssd_matmul(seg, taps, minp, maxp, _PITCH_PRECISION)
-        period_grid = parabolic_min(ssd, minp, maxp - minp - 1)
-    # Look up the period at each chunk's nominal source position.
-    g_idx = jnp.clip(jnp.round(c / G).astype(jnp.int32), 0, n_grid - 1)
-    period = jnp.take_along_axis(period_grid, g_idx, axis=1)  # [B, K]
-    if debug_stage == "pitch":
-        return jnp.sum(period) + jnp.sum(valid).astype(dtype)
+        c = fidx * frame_step + (p_b - ob_f) * sp_f  # [B, K]
+        if in_offset is not None:
+            c = c + in_offset[:, None].astype(dtype)
+        c = jnp.clip(c, 0.0, jnp.maximum(lens_f - 1.0, 0.0)[:, None])
+
+    # ---- 2. pitch on a regular grid ----
+    with jax.named_scope("pitch"):
+        seg_w = taps + maxp
+        # One estimate per ~30 ms (the stride helper below): pitch varies
+        # slowly, and Teager margins, real-speech splices and every
+        # Teager/DTW/varying-speed gate matched a 20 ms grid. G >= seg_w
+        # makes the windows non-overlapping slice views of one reshape.
+        G = _grid_stride(Hs, seg_w)
+        period_grid = pitch_period_grid(xs, G, minp, maxp)
+        n_grid = period_grid.shape[1]
+        # Look up the period at each chunk's nominal source position.
+        g_idx = jnp.clip(jnp.round(c / G).astype(jnp.int32), 0, n_grid - 1)
+        period = jnp.take_along_axis(period_grid, g_idx, axis=1)  # [B, K]
 
     # ---- 3. phase snap, closed form (no scan) ----
     # The recurrence a_k = c_k + wrap(a_{k-1} + Hs - c_k, P_k) telescopes:
@@ -528,152 +360,95 @@ def _wsola_grid_batch(
     # removes the last per-chunk sequential dependency — the entire
     # resynthesis is now parallel (verified against the scan form by the
     # Teager and DTW gates; measured identical rel-sigma).
-    kk = jnp.arange(K, dtype=dtype)[None, :]
-    pr = c[:, :1] if phase_ref is None else phase_ref[:, None].astype(dtype)
-    delta = pr + kk * Hs - c
-    o = delta - jnp.round(delta / period) * period
-    a = jnp.clip(c + o, 0.0, (lens_f - 1.0)[:, None])  # [B, K]
-    if debug_stage == "phase":
-        return jnp.sum(a) + jnp.sum(valid).astype(dtype)
+    with jax.named_scope("phase"):
+        kk = jnp.arange(K, dtype=dtype)[None, :]
+        pr = c[:, :1] if phase_ref is None else phase_ref[:, None].astype(dtype)
+        c_g = c
+        if in_offset is not None:
+            # Snap in the speed-frame-0 clock: for an integer offset both
+            # shifts are exact, so a continuation (a stream segment, a
+            # sequence-parallel shard) rounds delta exactly like a
+            # whole-utterance run and makes the same half-period
+            # decisions.
+            off = in_offset[:, None].astype(dtype)
+            pr, c_g = pr - off, c - off
+        delta = pr + kk * Hs - c_g
+        o = delta - jnp.round(delta / period) * period
+        a = jnp.clip(c + o, 0.0, (lens_f - 1.0)[:, None])  # [B, K]
+        a_i = jnp.floor(a).astype(jnp.int32)
+        a_f = a - a_i.astype(dtype)
 
     # ---- 4. synthesis: fractional-delay gather, half-slot OLA ----
-    win = jnp.asarray(_cola_hann(Wn, np.dtype(dtype).name))
-    a_i = jnp.floor(a).astype(jnp.int32)
-    a_f = a - a_i.astype(dtype)
+    # mask_output=False (streaming continuation): every slot is real
+    # output owned by the caller — no zero-mask.
+    valid_m = valid if mask_output else jnp.full((B,), capacity, jnp.int32)
 
-    if max_speed_plan is None:
-        w_span = None
-    else:
-        need = (
-            (span_rows - 1) * int(np.ceil(Hs * max_speed_plan))
-            + maxp
-            + (Wn + 1)
-            + 32
+    def synth(src, a_i_s, a_f_s, valid_s):
+        # src [N, L] -> [N, capacity]. Positions are clipped to [0, L-1],
+        # so the front pad is never read; the tail pad covers the
+        # 2*Hs + 1 row width past the last sample.
+        n = src.shape[0]
+        src_pad = jnp.concatenate(
+            [
+                jnp.zeros((n, maxp), dtype),
+                src,
+                jnp.zeros((n, 2 * maxp + taps + Wn), dtype),
+            ],
+            axis=1,
         )
-        w_span = -(-need // 1024) * 1024
-
-    def synth(src_raw, a_i_s, a_f_s, valid_s, g_s=None):
-        # src_raw [N, L] (unpadded, UNSCALED); positions [N, K] ->
-        # [N, capacity]. g_s [N] (optional): per-row input gain — the
-        # fused kernel applies it in VMEM post-selection so the padded
-        # HBM source stays gain-free (loop-invariant staging in serving
-        # scans); the XLA fallback folds it into its pad concat (the
-        # prescale order, bitwise-identical to passing src_raw * g_s).
-        n = src_raw.shape[0]
-        # Rows whose output slot is past valid_s contribute nothing the
-        # capacity mask keeps; skip their DMAs.
-        valid_rows = jnp.minimum(valid_s // Hs + 2, K)
-        # SPEEDY_FORCE_FUSED_SYNTH=interpret routes the fused kernel
-        # through Pallas interpret mode off-TPU, so the hermetic CPU
-        # suite can exercise the PRODUCTION synthesis wiring end-to-end
-        # (tests/test_pallas_kernels.py::test_grid_pipeline_fused_synth).
-        force_fused = os.environ.get("SPEEDY_FORCE_FUSED_SYNTH", "")
-        on_tpu = jax.default_backend() == "tpu"
-        if w_span is not None and (on_tpu or force_fused == "interpret"):
-            # Fused kernel: span gather + interp + window + OLA in VMEM,
-            # emitting final slots — the separate gather + XLA interp
-            # pipeline moves ~1.1 GB/step of HBM padding at these shapes.
-            # Raw source, raw starts: the wrapper's single fused pad is
-            # the only copy of x between HBM and the span DMAs.
-            from .pallas_kernels import gather_synth_block_pallas
-
-            slots = gather_synth_block_pallas(
-                src_raw, a_i_s, a_f_s, Hs, Wn + 1,
-                span_rows, w_span, valid_rows,
-                interpret=not on_tpu, gain=g_s,
-            )  # [N, K, Hs]
-            if debug_stage == "synthraw":
-                # Bisect hook: checksum the kernel's output BEFORE the
-                # reshape/mask pass so `full - synthraw` isolates that
-                # pass's cost (dead blocks' garbage may make the sum
-                # NaN — timing-only).
-                return slots
-            out_full = slots.reshape(n, K * Hs)
-        else:
-            src_s = src_raw if g_s is None else src_raw * g_s[:, None]
-            src_pad = jnp.concatenate(
-                [
-                    jnp.zeros((n, pad_front), dtype),
-                    src_s,
-                    jnp.zeros((n, 2 * maxp + taps + Wn), dtype),
-                ],
-                axis=1,
-            )
-            if w_span is None:
-                wide = _gather_rows(
-                    src_pad, a_i_s + pad_front, Wn + 1, valid_rows
-                )
-            else:
-                # Block-span gather: one span DMA per 128 rows + lane-
-                # parallel in-VMEM extraction.
-                wide = _gather_rows_spans(
-                    src_pad, a_i_s + pad_front, Wn + 1, span_rows, w_span,
-                    valid_rows,
-                )  # [N, K, Wn+1]
-            af = a_f_s[:, :, None]
-            raw = wide[:, :, :-1] * (1.0 - af) + wide[:, :, 1:] * af
-            rows = raw * win[None, None, :]
-            firsts = rows[:, :, :Hs]
-            seconds = rows[:, :, Hs:]
-            slots = firsts + jnp.concatenate(
-                [jnp.zeros((n, 1, Hs), dtype), seconds[:, :-1]], axis=1
-            )
-            slots = jnp.concatenate([raw[:, :1, :Hs], slots[:, 1:]], axis=1)
-            out_full = slots.reshape(n, K * Hs)  # plan: K*Hs >= capacity
+        slots = _synth_slots(src_pad, a_i_s + maxp, a_f_s, Hs)
+        out_full = slots.reshape(n, K * Hs)  # plan: K*Hs >= capacity
         idx = jnp.arange(capacity, dtype=jnp.int32)
         return jnp.where(
             idx[None, :] < valid_s[:, None], out_full[:, :capacity], 0.0
         )
 
-    # mask_output=False (streaming continuation): every slot is real
-    # output owned by the caller — no zero-mask, no valid-row DMA skips.
-    valid_m = valid if mask_output else jnp.full((B,), capacity, jnp.int32)
-    g_vec = None if gain is None else gain.astype(dtype)
-    if xs_channels is None:
-        out = synth(xs, a_i, a_f, valid_m, g_vec)
-        if debug_stage == "synthraw":
-            return jnp.sum(out) + jnp.sum(valid).astype(dtype)
-    else:
-        C = xs_channels.shape[1]
-        rep = lambda v: None if v is None else jnp.repeat(v, C, axis=0)
-        out = synth(
-            xs_channels.reshape(B * C, L),
-            rep(a_i), rep(a_f), rep(valid_m), rep(g_vec),
-        ).reshape(B, C, capacity)
+    with jax.named_scope("synthesis"):
+        if xs_channels is None:
+            out = synth(xs, a_i, a_f, valid_m)
+        else:
+            C = xs_channels.shape[1]
+            rep = lambda v: jnp.repeat(v, C, axis=0)
+            out = synth(
+                xs_channels.reshape(B * C, L), rep(a_i), rep(a_f), rep(valid_m)
+            ).reshape(B, C, capacity)
     res = WsolaResult(out, valid, jnp.full((B,), K, jnp.int32))
     if return_period:
         return res, period
     return res
 
 
+def _grid_stride(hop: int, seg_w: int) -> int:
+    """Pitch-grid cell stride: the smallest 128-multiple >= max(3*hop,
+    seg_w) — one estimate per ~30 ms (512 samples at 16 kHz)."""
+    return -(-max(3 * hop, seg_w) // 128) * 128
+
+
 def pitch_grid_stride(cfg: SpeedyConfig, hop: Optional[int] = None) -> int:
-    """The engine's pitch-grid cell stride G for a given hop (must mirror
-    the G computation inside _wsola_grid_batch: taps = maxp, seg_w =
-    taps + maxp). streaming_device.py aligns segment buffers to G so a
-    source position's pitch estimate is identical in every segment."""
+    """The engine's pitch-grid cell stride G for a given hop (taps = maxp,
+    seg_w = taps + maxp, as inside _wsola_grid_batch). streaming_device.py
+    aligns segment buffers to G so a source position's pitch estimate is
+    identical in every segment."""
     if hop is None:
         hop = max(32, cfg.frame_step_int)
-    seg_w = 2 * cfg.wsola_max_period
-    return -(-max(3 * hop, seg_w) // 128) * 128
+    return _grid_stride(hop, 2 * cfg.wsola_max_period)
 
 
 def plan_grid(
     cfg: SpeedyConfig, input_len: int, min_speed_bound: float, hop: Optional[int] = None
 ):
-    """NOTE on scaling: the engine's fused time-map inversion is
-    O(K*F) per utterance (K output chunks x F frames — the banded
-    compare-select that beats searchsorted at corpus batch shapes).
+    """NOTE on scaling: the engine's time-map inversion is O(K*F) per
+    utterance (K output chunks x F frames, a banded compare-select).
     That is the right trade for throughput batches of <= minutes-long
     utterances; single files beyond a few minutes should stream
     (streaming_device.py: O(segment) per step) or shard their slot axis
-    across chips (parallel/seqpar.py: O(K*F/n) per device)."""
+    across devices (parallel/seqpar.py: O(K*F/n) per device)."""
     if hop is None:
         # One analysis frame step (10 ms): chunk grid aligned with the
-        # speed-change granularity, and the phase-snap scan length — the
-        # throughput limiter — halves vs a frame_step/2 hop (measured
-        # 1111 -> 2252 audio-s/s/chip) while every Teager/DTW gate still
-        # holds. 2x the step gains another ~1.7x but fails the 0.4x
-        # slowdown Teager rel-sigma gate (0.013 vs 0.01).
+        # speed-change granularity, half the chunk count of a
+        # frame_step/2 hop, and every Teager/DTW gate still holds. 2x the
+        # step fails the 0.4x slowdown Teager rel-sigma gate (0.013 vs
+        # 0.01).
         hop = max(32, cfg.frame_step_int)
     capacity = (
         int(np.ceil(input_len / max(min_speed_bound, 0.01))) + 4 * cfg.wsola_max_period
@@ -696,8 +471,7 @@ def time_scale_grid(
     """Grid-parallel time-scaling of a single mono utterance x[L].
 
     max_speed_bound: optional planner ceiling on instantaneous speed
-    (speeds are clamped to it); enables the block-span gather fast path.
-    None keeps speeds unbounded (per-row gather)."""
+    (speeds are clamped to it). None keeps speeds unbounded."""
     x = jnp.asarray(x)
     if input_length is None:
         input_length = x.shape[-1]

@@ -48,7 +48,7 @@ def nonlinear_speedup(
     ±1. Default duration_feedback_strength mirrors the shim's default
     (soniclib.c:122). nonlinear_factor=0 short-circuits to pure linear
     WSOLA (soniclib.c:397-399). engine: "scan" (sonic-exact sequential
-    algebra) or "grid" (parallel WSOLA, the TPU throughput path).
+    algebra) or "grid" (parallel WSOLA, the throughput path).
     """
     x = np.asarray(x)
     if x.dtype == np.int16:

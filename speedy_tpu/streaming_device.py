@@ -47,8 +47,8 @@ from .ops.speed import speed_from_tension
 @functools.lru_cache(maxsize=16)
 def _jitted_chunk_step(cfg: SpeedyConfig, chunk_frames: int):
     """One compiled analysis step per (config, chunk size) — shared by
-    every pipeline instance (remote TPU compiles take minutes; a
-    per-instance jit cache would recompile per stream)."""
+    every pipeline instance (a per-instance jit cache would recompile
+    per stream)."""
     carry0, body = make_chunk_step(cfg, chunk_frames)
     return carry0, jax.jit(body)
 
@@ -116,10 +116,7 @@ class DeviceStreamingPipeline:
         self.capacity = (self.K_st - 1) * self.Hs
 
         # --- device programs (compiled lazily; caches shared across
-        # instances, plus the persistent on-disk cache) ---
-        from .profiling import enable_compile_cache
-
-        enable_compile_cache()
+        # instances) ---
         carry0, self._an_step = _jitted_chunk_step(cfg, self.Ch)
         self._an_carry = carry0
 

@@ -1,6 +1,6 @@
 """Gates for the O(1)-state chunked device streaming path (SURVEY.md
 §5.7; ops/chunked.py): tension must match the full-materialization
-analysis on real speech and on a 10-minute utterance, independent of the
+analysis on speech-like audio and on a 10-minute utterance, independent of the
 chunk size, with device state that does not grow with length."""
 
 import numpy as np
@@ -9,8 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+import testutil
 from speedy_tpu.config import SpeedyConfig
-from speedy_tpu.io import read_wave
 from speedy_tpu.ops.analysis import analyze
 from speedy_tpu.ops.chunked import _Carry, chunked_tension
 
@@ -29,8 +29,7 @@ def _full_tension(x, cfg):
 
 @pytest.mark.parametrize("chunk", [32, 64, 256])
 def test_chunked_matches_full_on_tapestry(chunk):
-    s, sr = read_wave("/root/reference/test_data/tapestry.wav")
-    x = (s.astype(np.float32) / 32768.0)
+    x, sr = testutil.speech_like(16000, 50381), 16000
     cfg = SpeedyConfig(sr)
     full = _full_tension(x, cfg)
     got = np.asarray(chunked_tension(jnp.asarray(x), cfg, chunk_frames=chunk))

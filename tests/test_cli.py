@@ -1,24 +1,19 @@
 """CLI (speedy_wave equivalent) and rate-change tests."""
 
 import numpy as np
-import pytest
 
 import testutil
 from speedy_tpu.config import SpeedyConfig
 from speedy_tpu.io.wave import read_wave, write_wave
 
-pytestmark = pytest.mark.skipif(
-    not testutil.have_test_data(), reason="reference test_data not available"
-)
-
-TAP = str(testutil.TEST_DATA_DIR / "tapestry22050.wav")
-
-
 def run_cli(tmp_path, *args):
+    """Run the CLI on a seeded speech wav of tapestry22050.wav's shape
+    (22.05 kHz, 69431 samples)."""
     from speedy_tpu.cli import main
 
+    inp = testutil.write_speech_wav(tmp_path / "in.wav", 22050, 69431)
     out = tmp_path / "out.wav"
-    rc = main(["--input", TAP, "--output", str(out), *args])
+    rc = main(["--input", inp, "--output", str(out), *args])
     assert rc == 0
     samples, sr = read_wave(str(out))
     return samples, sr

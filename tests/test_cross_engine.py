@@ -5,7 +5,7 @@ The scan engine (ops/wsola.py) re-implements libsonic's per-step
 speed-change algebra exactly and is the repo's strongest available
 fidelity anchor for C19 (libsonic itself is an external, unbuildable
 dependency — /root/reference/Makefile:7,17). The grid engine
-(ops/wsola_fast.py) is the TPU production path with a different pitch
+(ops/wsola_fast.py) is the production path with a different pitch
 search (regular-grid SSD vs AMDF-at-cursor) and synthesis schedule, so
 outputs are not bitwise-comparable; the correct harness is the
 reference's own cross-output shape (sonic_test.cc:641-724): DTW-align
@@ -85,11 +85,8 @@ def _families(secs=4.0):
 
 def _signal(name):
     if name == "tapestry":
-        if not testutil.have_test_data():
-            pytest.skip("no test data")
-        samples, sr = testutil.load_wave("tapestry.wav")
-        assert sr == SR
-        return samples.astype(np.float32) / 32768.0
+        # tapestry.wav's shape as a seeded speech stand-in.
+        return testutil.speech_like(SR, 50381)
     return _families()[name]
 
 

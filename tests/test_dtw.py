@@ -98,11 +98,10 @@ def slopes_everywhere(x, y, half_width):
     )
 
 
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 @pytest.mark.parametrize("engine", ["scan", "grid"])
 @pytest.mark.parametrize("mode,slope_tol", [("linear", 0.02), ("speedy", 0.1)])
 def test_dtw_slope_of_compressed_speech(mode, slope_tol, engine):
-    samples, sr = testutil.load_wave("tapestry.wav")
+    samples, sr = testutil.speech_pcm(16000, 50381), 16000
     cfg = SpeedyConfig(sr)
     speed = 3.0
     orig_spec = compute_block_spectrogram(samples, cfg)

@@ -268,9 +268,7 @@ def test_speed_law_slowdown_clamps():
 def test_duration_feedback_shrinks_excess():
     """Excess duration strictly shrinks as feedback strength grows
     (speedy_test.cc:653-711 behavioral contract, control-law level)."""
-    samples, sr = testutil.load_wave("tapestry.wav") if testutil.have_test_data() else (None, None)
-    if samples is None:
-        pytest.skip("no test data")
+    samples, sr = testutil.speech_pcm(16000, 50381), 16000
     x = samples.astype(np.float32)
     res = analyze_jit(x, SpeedyConfig(sr))
     tension = jnp.asarray(np.tile(np.asarray(res.tension), 20))

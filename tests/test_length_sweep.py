@@ -1,7 +1,8 @@
 """Tier-4 real-speech length-sweep parity (sonic_classic_test.cc:518-576).
 
 The reference gates the classic (linear, constant-speed) WSOLA engine on:
-  * TestFullSpeechRange  (:518-534): tapestry.wav (16 kHz, 50381 samples),
+  * TestFullSpeechRange  (:518-534): tapestry.wav (16 kHz, 50381 samples;
+    here a seeded speech-like signal of that rate and length),
     speedups 1.1 -> 6.3 step 0.25, output length within +-14 ms.
   * TestFullNoiseRange   (:557-576): 50k samples of Gaussian noise at
     16 kHz, same sweep, within 1.5 * sr / 100 samples.
@@ -10,7 +11,7 @@ The reference gates the classic (linear, constant-speed) WSOLA engine on:
     is ABSENT from the reference's test_data/ — SURVEY.md §4 — so this
     rebuild gates the same contract on a synthesized long stereo signal.)
 
-Both rebuild engines are swept: the grid engine (TPU throughput path) and
+Both rebuild engines are swept: the grid engine (throughput path) and
 the scan engine (sonic-exact algebra). Each engine compiles ONE program
 per signal shape — speed is a dynamic input and the capacity plan is
 fixed at min_speed_bound=1.0 — so the 21-point sweep costs one compile.
@@ -21,20 +22,19 @@ import pytest
 
 import jax.numpy as jnp
 
+import testutil
 from speedy_tpu.config import SpeedyConfig
-from speedy_tpu.io import read_wave
 from speedy_tpu.ops import wsola, wsola_fast
 
-TAPESTRY = "/root/reference/test_data/tapestry.wav"
 # for (float s = 1.1; s < 6.3; s += 0.25): 21 points, last 6.1.
 SWEEP = [1.1 + 0.25 * k for k in range(21)]
 SWEEP_COARSE = [1.1 + 0.5 * k for k in range(11)]  # stereo test's step 0.5
 
 
 def _load_tapestry():
-    s, sr = read_wave(TAPESTRY)
-    assert sr == 16000 and len(s) == 50381  # sonic_classic_test.cc:524-526
-    return s.astype(np.float32) / 32768.0, sr
+    """tapestry.wav's shape (16 kHz, 50381 samples, sonic_classic_test.cc:
+    524-526) as a seeded speech stand-in."""
+    return testutil.speech_like(16000, 50381), 16000
 
 
 def _noise_16k(n=50000, seed=0):

@@ -47,11 +47,10 @@ def time_compress(StreamCls, x, sr, ch, speed, nonlinear, native_cbs):
     return np.concatenate(out), np.asarray(tensions)
 
 
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 def test_native_matches_python_streaming(lib):
     from speedy_tpu.streaming import SonicStream
 
-    samples, sr = testutil.load_wave("tapestry.wav")
+    samples, sr = testutil.speech_pcm(16000, 50381), 16000
     out_n, t_n = time_compress(native.NativeSonicStream, samples, sr, 1, 3.0, 1.0, True)
     out_p, t_p = time_compress(SonicStream, samples, sr, 1, 3.0, 1.0, False)
     assert len(out_n) == len(out_p)
@@ -161,7 +160,6 @@ def test_native_rate(lib):
     assert abs(len(out) - expected) < 0.03 * expected
 
 
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 def test_native_cli_binary(lib, tmp_path):
     cli = native._CSRC / "speedy_wave"
     if not cli.exists():
@@ -169,7 +167,8 @@ def test_native_cli_binary(lib, tmp_path):
                        capture_output=True)
     out_wav = tmp_path / "out.wav"
     r = subprocess.run(
-        [str(cli), "--input", str(testutil.TEST_DATA_DIR / "tapestry22050.wav"),
+        [str(cli), "--input",
+         testutil.write_speech_wav(tmp_path / "speech.wav", 22050, 69431),
          "--output", str(out_wav), "--speed", "3.0"],
         capture_output=True, text=True,
     )
@@ -346,7 +345,7 @@ def test_native_cli_dump_and_length_parity(lib, tmp_path):
     if not cli.exists():
         subprocess.run(["make", "-C", str(native._CSRC)], check=True,
                        capture_output=True)
-    wav = str(testutil.TEST_DATA_DIR / "tapestry.wav")
+    wav = testutil.write_speech_wav(tmp_path / "speech.wav", 16000, 50381)
 
     def args_for(d):
         return [

@@ -46,20 +46,15 @@ def test_oracle_reproduces_pinned_table():
     not pathlib.Path("/root/reference/speedy.c").exists(),
     reason="reference source not available",
 )
-def test_analysis_kernel_matches_oracle_16k(tmp_path, monkeypatch):
-    """Golden-level gate for the FLAGSHIP production front-end at a rate
-    the fused analysis kernel actually supports. The Matlab golden dumps
-    are 22.05 kHz, where the kernel's 4-phase lattice (gf = 32 > 8)
-    falls back to the XLA chain — so before this gate the kernel never
-    faced reference-derived data (round-2 verdict item 1/4). Build the
-    exact-DFT oracle (MATCH_MATLAB), run it on the 16 kHz tapestry.wav,
-    and hold the kernel-path batched_analysis tension to it at both
-    production (HIGH) and HIGHEST precision."""
+def test_batched_analysis_matches_oracle_16k(tmp_path):
+    """Golden-level gate for the production front end at 16 kHz (the
+    Matlab golden dumps are 22.05 kHz only). Build the exact-DFT oracle
+    (MATCH_MATLAB), run it on the 16 kHz tapestry.wav, and hold the
+    batched_analysis tension to it at HIGH and HIGHEST precision."""
     import numpy as np
     import jax.numpy as jnp
 
     from speedy_tpu.config import SpeedyConfig
-    from speedy_tpu.ops import pallas_kernels as pk
     from speedy_tpu.parallel.batch import batched_analysis
 
     oracle_dir = REPO / "tools" / "oracle"
@@ -86,32 +81,16 @@ def test_analysis_kernel_matches_oracle_16k(tmp_path, monkeypatch):
     t_oracle = np.loadtxt(feat_p)[:, -1]
 
     cfg = SpeedyConfig(sr)
-    W, step = cfg.window_size, cfg.frame_step_int
-    # The kernel must be the ACTIVE path at this rate, or the gate is
-    # testing the XLA chain again.
-    assert pk._analysis_geometry(W, step) is not None
-    monkeypatch.setenv("SPEEDY_FORCE_ANALYSIS_KERNEL", "interpret")
     T = cfg.num_frames(len(x), integer_step=True)
 
-    # HIGHEST is oracle-exact (measured max 8e-7 over tapestry's 306
-    # frames). HIGH (the production default, bf16x3) matches everywhere
-    # except isolated 40 dB-mask-edge frames — the documented formulation
-    # class (CLAUDE.md) — measured 2/306 frames above 1e-4, worst 5.4e-3.
-    # Gate: tight mean + a counted outlier budget, AND every outlier
-    # attributed to the mask-edge class in float64 (a regression on a
-    # non-edge frame fails even inside the count budget).
-    for prec, atol, mean_tol, outliers in (
-        ("high", 1e-2, 5e-5, 4),
-        ("highest", 5e-6, 5e-7, 0),
-    ):
-        monkeypatch.setenv("SPEEDY_ANALYSIS_PRECISION", prec)
-        t_ours = np.asarray(
-            batched_analysis(jnp.asarray(x[None]), cfg, T)
-        )[0]
-        assert t_ours.shape == t_oracle.shape, (t_ours.shape, t_oracle.shape)
-        d = np.abs(t_ours - t_oracle)
-        n_big = int((d > 1e-4).sum())
-        assert d.max() < atol and d.mean() < mean_tol and n_big <= outliers, (
-            prec, d.max(), d.mean(), n_big,
-        )
-        testutil.assert_tension_outliers_are_mask_edges(x, cfg, T, d)
+    # Full float32 analysis is oracle-exact (max 8e-7 over tapestry's 306
+    # frames). Gate: tight max and mean, no frame above 1e-4, and any
+    # outlier attributed to the mask-edge class in float64.
+    t_ours = np.asarray(batched_analysis(jnp.asarray(x[None]), cfg, T))[0]
+    assert t_ours.shape == t_oracle.shape, (t_ours.shape, t_oracle.shape)
+    d = np.abs(t_ours - t_oracle)
+    n_big = int((d > 1e-4).sum())
+    assert d.max() < 5e-6 and d.mean() < 5e-7 and n_big == 0, (
+        d.max(), d.mean(), n_big,
+    )
+    testutil.assert_tension_outliers_are_mask_edges(x, cfg, T, d)

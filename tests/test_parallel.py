@@ -34,16 +34,8 @@ def make_batch(B=4, L=8000, seed=0):
 
 def test_batched_analysis_matches_vmap():
     """The fused batched front-end must be bit-compatible with the
-    per-utterance analyze() under vmap.
-
-    On the hermetic CPU backend both run the identical XLA formulation,
-    so the gate is tight. On real TPU hardware batched_analysis takes the
-    fused Pallas front-end (pallas_kernels.analysis_energy_lsd_pallas)
-    while vmap(analyze) stays on the XLA chain — two different (exactly
-    wired, see test_pallas_kernels.py::test_analysis_kernel_matches_xla)
-    HIGH-precision evaluations of the same math, so single-frame tension
-    may deviate up to ~5e-3 at 40 dB bin-mask edges (measured max 4.3e-3,
-    mean 1e-5 on tapestry+noise); the gate loosens accordingly."""
+    per-utterance analyze() under vmap: both run the identical XLA
+    formulation, so the gate is tight."""
     xs = make_batch()
     T = CFG16.num_frames(xs.shape[1], integer_step=True)
     got = np.asarray(batched_analysis(jnp.asarray(xs), CFG16, T))
@@ -52,11 +44,7 @@ def test_batched_analysis_matches_vmap():
             jnp.asarray(xs)
         )
     )
-    if jax.default_backend() == "tpu":
-        np.testing.assert_allclose(got, ref, atol=8e-3)
-        assert np.abs(got - ref).mean() < 2e-4
-    else:
-        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
 
 
 def test_batched_speedup_shapes_and_rates():
@@ -395,26 +383,6 @@ def test_fused_input_gain_multichannel():
     np.testing.assert_allclose(
         np.asarray(got.output), np.asarray(ref.output), atol=2e-4
     )
-
-
-def test_mesh_analysis_kernel_shard_map(monkeypatch):
-    """The fused analysis front-end under a dp mesh: the shard_map wiring
-    (batch pad to a dp multiple, per-shard kernel dispatch, unpad) must
-    reproduce the unmeshed kernel path exactly — B=6 on dp=4 exercises
-    the padded-batch branch. Hermetic via interpret mode; the kernel
-    itself is gated against the XLA chain in test_pallas_kernels.py."""
-    if jax.device_count() < 8:
-        pytest.skip("needs >= 8 devices")
-    monkeypatch.setenv("SPEEDY_FORCE_ANALYSIS_KERNEL", "interpret")
-    mesh = make_mesh(dp=4, tp=2)
-    xs = make_batch(B=6)
-    T = CFG16.num_frames(xs.shape[1], integer_step=True)
-    g = jnp.asarray([1.0, 0.8, 1.2, 0.6, 1.1, 0.9], jnp.float32)
-    ref = np.asarray(batched_analysis(jnp.asarray(xs), CFG16, T, gain=g))
-    got = np.asarray(
-        batched_analysis(jnp.asarray(xs), CFG16, T, mesh=mesh, gain=g)
-    )
-    np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
 def test_mesh_analysis_xla_pads_ragged_batch():

@@ -9,8 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+import testutil
 from speedy_tpu.config import SpeedyConfig
-from speedy_tpu.io import read_wave
 from speedy_tpu.ops.analysis import analyze
 from speedy_tpu.parallel.mesh import make_mesh
 from speedy_tpu.parallel.seqpar import analysis_seq_parallel
@@ -31,8 +31,7 @@ def _full(x, cfg):
 
 @pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 devices")
 def test_seqpar_matches_single_device_tapestry():
-    s, sr = read_wave("/root/reference/test_data/tapestry.wav")
-    x = s.astype(np.float32) / 32768.0
+    x, sr = testutil.speech_like(16000, 50381), 16000
     cfg = SpeedyConfig(sr)
     mesh = make_mesh(tp=1)
     got = np.asarray(analysis_seq_parallel(jnp.asarray(x), cfg, mesh))

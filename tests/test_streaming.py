@@ -97,11 +97,10 @@ def test_float_streaming_path():
     check_teager(x, out16, 300)
 
 
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 def test_mono_stereo_equivalence():
     """sonic_test.cc:871-947: identical stereo channels give tension equal
     to mono (±1e-5 relative) and per-sample outputs within ±1."""
-    samples, sr = testutil.load_wave("tapestry.wav")
+    samples, sr = testutil.speech_pcm(16000, 50381), 16000
     out_m, tens_m, _, _ = time_compress(samples, sr, 1, 3.0, 1.0)
     stereo = np.repeat(samples, 2)
     out_s, tens_s, _, _ = time_compress(stereo, sr, 2, 3.0, 1.0)
@@ -133,10 +132,10 @@ def test_linear_passthrough_shortcircuit():
     assert abs(len(out) - expected) < 0.015 * expected
 
 
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 def test_negative_speed_streaming():
-    """TestNegativeSpeedInput (speedy_test.cc:1059-1076)."""
-    samples, sr = testutil.load_wave("negative_speed.wav")
+    """TestNegativeSpeedInput (speedy_test.cc:1059-1076), on 1.5 s of
+    24 kHz speech-like audio (negative_speed.wav's rate)."""
+    samples, sr = testutil.speech_pcm(24000, 36000), 24000
     st = SonicStream(sr, 1)
     st.set_speed(0.25)
     st.enable_nonlinear_speedup(1.0)
@@ -146,14 +145,13 @@ def test_negative_speed_streaming():
     assert np.all(np.isfinite(out.astype(np.float32)))
 
 
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 def test_streaming_matches_batch_rate():
     """The streaming shim and the batched pipeline achieve the same rate on
-    real speech (they share the algorithm; alignment differs by the shim's
+    speech (they share the algorithm; alignment differs by the shim's
     one-frame AddData offset)."""
     from speedy_tpu.pipeline import nonlinear_speedup
 
-    samples, sr = testutil.load_wave("tapestry.wav")
+    samples, sr = testutil.speech_pcm(16000, 50381), 16000
     out_stream, _, _, _ = time_compress(samples, sr, 1, 3.0, 1.0)
     r = nonlinear_speedup(samples, SpeedyConfig(sr), 3.0, 1.0, 0.1)
     assert abs(len(out_stream) - len(r.output)) < 0.05 * len(r.output)

@@ -76,22 +76,20 @@ def test_nearly_linear_nonlinear_path():
 
 
 @pytest.mark.parametrize("engine", ["scan", "grid"])
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 def test_speech_nonlinear_rate(engine):
     """Nonlinear speech speedup achieves roughly the requested rate with
     duration feedback (speedy_test.cc:653-711 contract at pipeline level)."""
-    samples, sr = testutil.load_wave("tapestry.wav")
+    samples, sr = testutil.speech_pcm(16000, 50381), 16000
     cfg = SpeedyConfig(sr)
     r = nonlinear_speedup(samples, cfg, 3.0, 1.0, 0.1, engine=engine)
     assert abs(r.achieved_rate - 3.0) < 0.3  # within 10%
     assert np.max(np.abs(r.output.astype(np.int32))) > 1000  # actual audio
 
 
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 def test_duration_feedback_improves_rate():
     """Excess duration strictly shrinks as feedback strength grows, through
     the full pipeline (speedy_test.cc:696-711)."""
-    samples, sr = testutil.load_wave("tapestry.wav")
+    samples, sr = testutil.speech_pcm(16000, 50381), 16000
     cfg = SpeedyConfig(sr)
     desired = 3.0
     errors = []
@@ -101,11 +99,10 @@ def test_duration_feedback_improves_rate():
     assert errors[0] > errors[1] > errors[2]
 
 
-@pytest.mark.skipif(not testutil.have_test_data(), reason="no test data")
 def test_negative_speed_wav_slowdown_no_crash():
-    """speedy_test.cc:1059-1076: 24 kHz file at speed 0.25 with nonlinear
+    """speedy_test.cc:1059-1076: 24 kHz audio at speed 0.25 with nonlinear
     speedup must process without blowing up."""
-    samples, sr = testutil.load_wave("negative_speed.wav")
+    samples, sr = testutil.speech_pcm(24000, 36000), 24000
     cfg = SpeedyConfig(sr)
     r = nonlinear_speedup(samples, cfg, 0.25, 1.0, 0.1, min_speed_bound=0.1)
     assert np.all(np.isfinite(r.output.astype(np.float32)))
@@ -136,36 +133,9 @@ def test_length_contract_extremes(speed):
     assert abs(len(r.output) - expected) < 0.014 * SR + 0.015 * expected
 
 
-def test_span_gather_matches_per_row():
-    """_gather_rows_spans (block-span DMA + dense extraction) must equal
-    the per-row gather exactly for near-monotone starts, including with a
-    per-utterance valid-row count."""
-    import jax.numpy as jnp
-
-    from speedy_tpu.ops.wsola_fast import _gather_rows, _gather_rows_spans
-
-    rng = np.random.default_rng(7)
-    B, K, width, L = 3, 101, 321, 50000
-    x = jnp.asarray(rng.standard_normal((B, L)).astype(np.float32))
-    steps = rng.integers(0, 900, size=(B, K))
-    starts = jnp.asarray(
-        np.minimum(np.cumsum(steps, axis=1), L - width - 1).astype(np.int32)
-    )
-    R = 32
-    w_span = -(-((R - 1) * 900 + width + 32) // 1024) * 1024
-    ref = np.asarray(_gather_rows(x, starts, width))
-    got = np.asarray(_gather_rows_spans(x, starts, width, R, w_span))
-    np.testing.assert_array_equal(ref, got)
-    n_valid = jnp.asarray(np.array([50, 80, 101], np.int32))
-    got_v = np.asarray(_gather_rows_spans(x, starts, width, R, w_span, n_valid))
-    for b in range(B):
-        np.testing.assert_array_equal(ref[b, : int(n_valid[b])],
-                                      got_v[b, : int(n_valid[b])])
-
-
 def test_grid_engine_max_speed_bound_parity():
-    """With speeds below the plan ceiling, the block-span-gather engine
-    must produce the identical output to the per-row engine."""
+    """With speeds below the plan ceiling, the speed clamp is a no-op:
+    the output must be identical to the unbounded engine's."""
     import jax.numpy as jnp
 
     from speedy_tpu.ops import wsola_fast

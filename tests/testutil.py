@@ -20,6 +20,48 @@ def have_test_data() -> bool:
     return TEST_DATA_DIR.is_dir()
 
 
+def speech_like(sample_rate: int = 16000, n: int = 50381, seed: int = 0) -> np.ndarray:
+    """Seeded speech stand-in (the benchmark's voiced family plus a low
+    noise floor), float32 in ±1. The defaults match tapestry.wav's rate
+    and length (sonic_classic_test.cc:524-526)."""
+    from bench_signals import speechlike
+
+    rng = np.random.default_rng(seed)
+    x = speechlike(sample_rate, n) + 0.002 * rng.standard_normal(n)
+    return x.astype(np.float32)
+
+
+def speech_pcm(sample_rate: int = 16000, n: int = 50381, seed: int = 0) -> np.ndarray:
+    """speech_like as 16-bit PCM, the form read_wave returns."""
+    x = speech_like(sample_rate, n, seed)
+    return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def write_speech_wav(path, sample_rate: int = 16000, n: int = 50381, seed: int = 0) -> str:
+    """Write speech_pcm to a mono wav file; returns the path as a str."""
+    from speedy_tpu.io import write_wave
+
+    write_wave(str(path), speech_pcm(sample_rate, n, seed), sample_rate)
+    return str(path)
+
+
+def stream_tension(x: np.ndarray, sr: int) -> np.ndarray:
+    """Per-frame tension from the sample-serial NumPy front end, fed the
+    batch engine's integer-step frames (frame t = x[t*step : t*step+W])."""
+    from speedy_tpu.streaming import SpeedyFrontEndStream
+
+    fe = SpeedyFrontEndStream(sr)
+    W, step = fe.input_frame_size(), fe.input_frame_step()
+    T = (len(x) - W) // step + 1
+    fut = fe.cfg.hysteresis_future
+    out = []
+    for t in range(T):
+        fe.add_data(x[t * step : t * step + W], t)
+        if t >= fut:
+            out.append(fe.compute_tension(t - fut))
+    return np.asarray(out, np.float32)
+
+
 @functools.lru_cache(maxsize=8)
 def load_golden(name: str) -> np.ndarray:
     return np.loadtxt(TEST_DATA_DIR / name)
@@ -104,10 +146,9 @@ def assert_tension_outliers_are_mask_edges(
     term then enters/leaves the spectral-difference sum. For every frame
     with |tension - oracle| > outlier_thresh, recompute the spectrogram in
     float64 and assert some bin's RELATIVE distance to the threshold is
-    < edge_rel_eps. Probe (experiments/oracle_outlier_probe.py): the two
-    real outliers sit at margins 2.1e-5 / 5.9e-6 while only 5/304 clean
-    frames fall under 1e-4 — a regression elsewhere cannot hide in the
-    budget by chance."""
+    < edge_rel_eps. On tapestry.wav the two real outliers sat at margins
+    2.1e-5 / 5.9e-6 while only 5/304 clean frames fell under 1e-4 — a
+    regression elsewhere cannot hide in the budget by chance."""
     diffs = np.asarray(diffs)
     out_idx = np.where(diffs > outlier_thresh)[0]
     if out_idx.size == 0:
@@ -144,12 +185,11 @@ def assert_period_flips_are_ties(
 
     For every cell where |per_a - per_b| > 0.5 (and ``mask``, if given),
     recompute the exact SSD objective in float64 with a naive numpy loop
-    (wsola_fast.ssd_matmul's definition: template = seg[:taps],
+    (wsola_fast._pitch_ssd's definition: template = seg[:taps],
     SSD(d) = sum((seg[:taps] - seg[d:d+taps])**2) over the seg_w window)
     at BOTH chosen integer lags. A benign re-ranking has
-    |SSD(a) - SSD(b)| within f32 summation noise of the curve scale
-    (probe: experiments/fused_pitch_voiced_flips.py found EXACT float64
-    ties); one path picking a genuinely worse lag fails loudly. Uniform
+    |SSD(a) - SSD(b)| within f32 summation noise of the curve scale;
+    one path picking a genuinely worse lag fails loudly. Uniform
     per-utterance gain cancels in the relative margin, so raw segments
     are fine."""
     per_a = np.asarray(per_a, np.float64)
